@@ -180,7 +180,7 @@ def _map_argparser(prog):
     ap.add_argument("--device-pass1", action="store_true",
                     dest="device_pass1",
                     help="score the exact pass-1 candidate windows on "
-                         "the TPU (batched Pallas SW) while the host "
+                         "the accelerator (batched SW) while the host "
                          "runs seeding and the exact pass-2; output "
                          "stays bit-identical (extension over the "
                          "reference CLI)")
@@ -188,13 +188,14 @@ def _map_argparser(prog):
                     dest="device_exact",
                     help="run the exact engine's full front half "
                          "(seeding, hit collection, collation AND "
-                         "pass-1 scoring) on the TPU in one dispatch "
+                         "pass-1 scoring) on the accelerator in one "
+                         "dispatch "
                          "per block; host keeps rank selection, depth "
                          "sort, pass-2 and rendering; output stays "
                          "bit-identical (extension over the reference "
                          "CLI)")
     ap.add_argument("--fast", action="store_true", dest="fastmode",
-                    help="TPU device pass-1 + host traceback tail "
+                    help="accelerator pass-1 + host traceback tail "
                          "(SAM; single or paired with mate rescue; "
                          "reference-style output, not bit-identical — "
                          "extension over the reference CLI)")
@@ -312,6 +313,16 @@ def cmd_map(argv: List[str]) -> int:
     import time
     t_start = time.time()
     a = _map_argparser("smalt_tpu map").parse_args(argv)
+    modes = [flag for flag, on in (("--fast", a.fastmode),
+                                   ("--device-exact", a.device_exact),
+                                   ("--device-pass1", a.device_pass1))
+             if on]
+    if modes:
+        from .device import check_platform
+        err = check_platform("map " + " ".join(modes))
+        if err:
+            print(err, file=sys.stderr)
+            return 1
     if a.fastmode:
         return _cmd_map_fast(a, argv)
     engine, refset, idx = _build_engine(a, argv)

@@ -8,14 +8,14 @@ numbers (serial * nskip = global base offset, hashidx.c:70-107).
 The observable contract of the reference's perfect/hash32mix table is
 simply: for an exact 2k-bit query word, the ascending list of sampled
 positions (hashidx.c:1147 hashTableGetKtupleHits).  We therefore use a
-TPU-friendly layout with no hashing at all:
+flat, device-friendly layout with no hashing at all:
 
     words:  uint64 [nwords]   sorted distinct k-mer words
     starts: int64  [nwords+1] CSR offsets into pos
     pos:    uint32 [npos]     tuple serial numbers, ascending per word
 
 Lookup is a binary search (searchsorted) — O(log nwords) gathers,
-which vectorizes over a whole batch of query words on TPU.
+which vectorizes over a whole batch of query words on the device.
 
 Sampling rules replicated from doWordsInSeq (hashidx.c:465-531):
   - tuple starts are global multiples of nskip that fall fully inside

@@ -3410,8 +3410,8 @@ int64_t fl_exact_pre_block(
     const uint8_t *quals_concat, const uint8_t *has_qual,
     int64_t Qpad,
     int64_t *pre, uint8_t *selmask,
-    /* optional host-side hit expansion (device gathers from pos[] are
-     * the TPU bottleneck — sequential host writes are ~free): packed
+    /* optional host-side hit expansion (sequential host writes in place
+     * of the device's random gathers from pos[]): packed
      * sort keys per (read, strand) lane, k1 = p -/+ q/nskip (int32),
      * k2 = q (uint8), valid prefix length in tot_out; tot_out = -1
      * when a lane exceeds Hcap (read falls back).  NULL = skip.

@@ -195,7 +195,7 @@ int sw_band_track(const int32_t *W, int qlen_prof,
 }
 
 /* Device-canonical standard-affine local DP: the EXACT recurrence of
- * the TPU kernel (smalt_tpu/ops/sw.py _sw_kernel):
+ * the device scorer (smalt_tpu/ops/sw.py sw_score_ref):
  *     T  = H[i-1][j-1] + W[subj_i][q_j]
  *     H0 = max(T, E, 0)
  *     F[j] = max(F[j-1] - ge, H0[j-1] - go)        (H0-anchored)

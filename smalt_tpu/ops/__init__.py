@@ -1,1 +1,1 @@
-from .sw import sw_score_batch, sw_score_ref
+from .sw import sw_scores, sw_score_ref

@@ -1,4 +1,4 @@
-"""Batched Smith-Waterman score kernels for TPU.
+"""Batched Smith-Waterman scoring on the device.
 
 This is the device replacement for the reference's Farrar striped
 SSE2 kernels (swsimd.c:443-660): full-matrix affine-gap local
@@ -7,476 +7,88 @@ diagonal H' = H[i-1,j-1] + W[i,j] values (exactly the quantity the
 striped kernels track in vMax).  Scores are identical to the host C
 kernel `sw_full` and to the reference's 8-bit -> 16-bit retry chain.
 
-TPU mapping: one grid step processes a (8, Q) tile — 8 candidates on
-the sublane axis, the query on the 128-wide lane axis — the native
-int32 VREG tile.  The kernel walks subject rows with a `fori_loop`,
-carrying (H, E, running-max) as loop state.  The in-row F dependency
-is solved with a prefix-max scan instead of the reference's lazy-F
-loop:
+The scorers walk subject rows with a `lax.scan`, carrying (H, E,
+running max) per candidate, the query on the minor axis.  The in-row F
+dependency is solved with a prefix-max scan instead of the reference's
+lazy-F loop:
 
     F[j] = max_{j'<j} (H0[j'] - gapopen - (j-1-j') * gapext)
          = cummax(H0[j'] + j'*ge)[j-1] - gapopen - (j-1)*ge
 
 exact whenever gapopen >= gapext (true for the defaults 4 >= 3;
-asserted).  cummax is a log-depth associative scan — O(log Q) vector
+asserted).  cummax is a log-depth associative scan: O(log Q) vector
 ops per subject row instead of sequential lazy-F passes.
 
 Everything is int32: reads are short enough that no 8/16-bit
-overflow-retry chain is needed (one of the places the TPU design is
-simpler than the SSE2 original).
+overflow-retry chain is needed.
+
+`sw_scores` picks the scorer (full-matrix or banded, plain or
+tracked) for every caller.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 NEG = -(1 << 28)
-UNROLL = 4   # subject rows per fori_loop step.  Measured on v5e: small
-             # bodies beat big ones on BOTH axes — 4 rows runs ~10%
-             # faster than the original 16-row unroll (17.2 vs 19.0 ms
-             # per 32k x 100bp batch) and compiles 15x faster; huge
-             # unrolled bodies are pathological for Mosaic (the banded
-             # kernel took 906 s to compile at 16 rows, 3.7 s at 4).
-BAND_UNROLL = int(__import__("os").environ.get("SMALT_BAND_UNROLL", 16))
+LONG_READ_Q = 512   # above this (with a known seed diagonal) windows
+                    # score in a band: O(band*S) instead of O(Q*S)
+                    # (rmap.c:888-896 analog)
 
 
-def _cb_for(Q: int) -> int:
-    """Candidates per grid step.  128 sublanes x 128 lanes is the v5e
-    sweet spot for short reads (545k reads/s end-of-step at Q=128);
-    shrink for long queries so the per-step profile (8 x CB x Q int32)
-    and H/E state stay well inside VMEM."""
-    if Q <= 256:
-        return 128
-    if Q <= 512:
-        return 64
-    return 32
+def sw_scores(qcodes, subj, slens, matrix, gapopen_pos, gapext_pos,
+              track=False, band_pad=None):
+    """Batched SW scores of [B, Q] query codes against [B, S] subject
+    windows (padding past `slens` is ignored).
 
+    band_pad: the window's left backoff before the seed diagonal, for
+    callers that placed the window on one (fast mode).  With it,
+    queries longer than LONG_READ_Q score in a band around that
+    diagonal (`sw_band_score_ref`), which equals the full score
+    whenever the optimal alignment stays inside the band.  Without it
+    the full matrix is scored at any length, as the exact modes need.
 
-def _make_sw_kernel(track: bool):
-    """Build the grid-step kernel.  With `track`, the kernel also finds
-    the ARGMAX cell of the running maximum — the first (subject row i,
-    query lane j) in row-major scan order where T = Hdiag + W attains
-    the final best, strictly-greater updates so earlier cells win ties
-    — and the output packs [best, i, j] into lanes 0..2.  This is the
-    device side of the fast tail's traceback contract: the host either
-    replays a gapless run ending at (i, j) or re-runs the identical
-    recurrence (fl_dev_align) from scratch."""
-
-    def _sw_kernel(qcodes_ref, subj_ref, slen_ref, matrix_ref, params_ref,
-                   out_ref):
-        go = params_ref[0, 0]
-        ge = params_ref[0, 1]
-        CB = qcodes_ref.shape[0]
-        Q = qcodes_ref.shape[-1]
-        S = subj_ref.shape[-1]
-        qc = qcodes_ref[:, :]                   # [CB, Q] int32 codes 0..7
-        mat = matrix_ref[:, :]                  # [8, 8]
-        # profile[a][c, j] = matrix[a, qc[c, j]], built with select chains
-        # (TPU mosaic supports only 2D gathers)
-        prof = []
-        for a in range(8):
-            row = jnp.full(qc.shape, mat[a, 0], jnp.int32)
-            for v in range(1, 8):
-                row = jnp.where(qc == v, mat[a, v], row)
-            prof.append(row)
-        jidx = jax.lax.broadcasted_iota(jnp.int32, (CB, Q), 1)
-        slens = slen_ref[:, 0]                  # [CB]
-
-        lane = jax.lax.broadcasted_iota(jnp.int32, (CB, Q), 1)
-
-        def cummax(x):
-            # log-depth inclusive prefix max along lanes (Hillis-Steele);
-            # lane rotate + mask lowers better than concatenate
-            d = 1
-            while d < Q:
-                shifted = jnp.where(lane < d, NEG, pltpu.roll(x, d, 1))
-                x = jnp.maximum(x, shifted)
-                d *= 2
-            return x
-
-        def one_row(H, E, acc, col, i):
-            Wrow = prof[0]
-            for a in range(1, 8):
-                Wrow = jnp.where(col == a, prof[a], Wrow)
-            Hdiag = jnp.where(lane < 1, 0, pltpu.roll(H, 1, 1))
-            T = Hdiag + Wrow
-            H0 = jnp.maximum(jnp.maximum(T, E), 0)
-            c = H0 + jidx * ge
-            cm = cummax(c)
-            cm_shift = jnp.where(lane < 1, NEG, pltpu.roll(cm, 1, 1))
-            F = cm_shift - go - (jidx - 1) * ge
-            Hn = jnp.maximum(H0, F)
-            En = jnp.maximum(E - ge, Hn - go)
-            keep = (i < slens)[:, None]
-            Hn = jnp.where(keep, Hn, H)
-            En = jnp.where(keep, En, E)
-            if track:
-                best, bi, bj = acc
-                rowmax = jnp.max(T, axis=1, keepdims=True)     # [CB, 1]
-                upd = keep & (rowmax > best)
-                minlane = jnp.min(jnp.where(T == rowmax, lane, 1 << 28),
-                                  axis=1, keepdims=True)
-                best = jnp.where(upd, rowmax, best)
-                bi = jnp.where(upd, i, bi)
-                bj = jnp.where(upd, minlane, bj)
-                acc = (best, bi, bj)
-            else:
-                acc = jnp.where(keep, jnp.maximum(acc, T), acc)
-            return Hn, En, acc
-
-        def body(i, carry):
-            # Dynamic lane indexing is not lowerable on TPU, so the
-            # subject buffer is carried in the loop state and rolled
-            # left UNROLL lanes per iteration; the current subject
-            # columns sit at static lane indices 0..UNROLL-1.
-            # sw_score_batch pads S to a 128 multiple, so
-            # S % UNROLL == 0.
-            H, E, acc, sstate = carry
-            for r in range(UNROLL):
-                H, E, acc = one_row(H, E, acc, sstate[:, r : r + 1],
-                                    UNROLL * i + r)
-            return (H, E, acc, pltpu.roll(sstate, S - UNROLL, 1))
-
-        H0 = jnp.zeros((CB, Q), jnp.int32)
-        E0 = jnp.zeros((CB, Q), jnp.int32)
-        if track:
-            acc0 = (jnp.zeros((CB, 1), jnp.int32),
-                    jnp.zeros((CB, 1), jnp.int32),
-                    jnp.zeros((CB, 1), jnp.int32))
-        else:
-            acc0 = jnp.zeros((CB, Q), jnp.int32)
-        sstate0 = subj_ref[:, :]
-        _, _, acc, _ = jax.lax.fori_loop(
-            0, S // UNROLL, body, (H0, E0, acc0, sstate0))
-        if track:
-            best, bi, bj = acc
-            lo = jax.lax.broadcasted_iota(jnp.int32, (CB, 128), 1)
-            out_ref[:, :] = jnp.where(
-                lo == 0, jnp.maximum(best, 0),
-                jnp.where(lo == 1, bi, jnp.where(lo == 2, bj, 0)))
-        else:
-            best = jnp.maximum(jnp.max(acc, axis=1), 0)
-            out_ref[:, :] = jnp.broadcast_to(best[:, None], (CB, 128))
-
-    return _sw_kernel
-
-
-_sw_kernel = _make_sw_kernel(track=False)
-_sw_kernel_track = _make_sw_kernel(track=True)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "track"))
-def _sw_batch_call(qcodes, subj, slens, matrix, params, interpret=False,
-                   track=False):
-    B, Q = qcodes.shape
-    S = subj.shape[1]
-    CB = _cb_for(Q)
-    grid = (B // CB,)
-    out = pl.pallas_call(
-        _sw_kernel_track if track else _sw_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((CB, Q), lambda b: (b, 0)),
-            pl.BlockSpec((CB, S), lambda b: (b, 0)),
-            pl.BlockSpec((CB, 1), lambda b: (b, 0)),
-            pl.BlockSpec((8, 8), lambda b: (0, 0)),
-            pl.BlockSpec((1, 2), lambda b: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((CB, 128), lambda b: (b, 0)),
-        out_shape=jax.ShapeDtypeStruct((B, 128), jnp.int32),
-        interpret=interpret,
-    )(qcodes, subj, slens, matrix, params)
-    if track:
-        return out[:, 0], out[:, 1], out[:, 2]
-    return out[:, 0]
-
-
-def _pad_to(x, n, axis, value=0):
-    pad = n - x.shape[axis]
-    if pad <= 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths, constant_values=value)
-
-
-def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos, gapext_pos,
-                   interpret=None, track=False):
-    """Batched full-matrix SW scores.
-
-    qcodes: [B, Q] int query 3-bit codes (0..7)
-    subj:   [B, S] int subject codes, padding past slens is ignored
-    slens:  [B]    valid subject lengths
-    matrix: [8, 8] score matrix
-
-    With track=True returns (scores, ti, tj): the row-major-first
-    argmax cell of each candidate's DP (subject row ti, query lane tj),
-    the anchor of the host traceback contract.  Query padding (code 7,
+    track=True returns (scores, ti, tj): the row-major-first argmax
+    cell of each candidate's DP (subject row ti, query column tj), the
+    anchor of the host traceback contract.  Query padding (code 7,
     scoring 0) can tie the best value but never precede its first
     occurrence, so the argmax always lands on a real cell.
     """
     assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    qcodes = jnp.asarray(qcodes, jnp.int32)
-    subj = jnp.asarray(subj, jnp.int32)
-    slens = jnp.asarray(slens, jnp.int32)
-    matrix = jnp.asarray(matrix, jnp.int32)
-    B, Q = qcodes.shape
-    S = subj.shape[1]
-    Qp = -(-Q // 128) * 128
-    CB = _cb_for(Qp)
-    Bp = -(-B // CB) * CB
-    Sp = -(-S // 128) * 128
-    # pad query positions with code 7 (N class, scores 0 everywhere): padded
-    # lanes can propagate H at zero gain but never raise the diagonal max.
-    # Padded subject rows are masked off via slens.
-    qcodes = _pad_to(_pad_to(qcodes, Qp, 1, 7), Bp, 0)
-    subj = _pad_to(_pad_to(subj, Sp, 1, 7), Bp, 0)
-    slens = _pad_to(slens, Bp, 0)
-    params = jnp.asarray([[gapopen_pos, gapext_pos]], jnp.int32)
-    out = _sw_batch_call(qcodes, subj, slens[:, None], matrix, params,
-                         interpret=interpret, track=track)
-    if track:
-        return out[0][:B], out[1][:B], out[2][:B]
-    return out[:B]
-
-
-def _band_cb(W: int, QB: int, S: int) -> int:
-    """Candidates per banded grid step.  SMALT_BAND_CB overrides for
-    sweeps; the default fills the sublane axis under a VMEM budget —
-    the r4 CB=16 at long widths left per-row fixed overhead dominant
-    (measured 1.4 -> 4.3 GCUPS going CB 16 -> 128 with UNROLL 16 at
-    Q=2048/W=640/B=1024, TPU_VALIDATE_r05)."""
-    import os
-    v = os.environ.get("SMALT_BAND_CB")
-    if v:
-        return int(v)
-    cb = 128
-    # per-block int32 residents: qbuf + sstate slabs (double-buffered
-    # by pallas) + H/E/acc/out planes
-    while cb > 16 and cb * 4 * (2 * (QB + S) + 4 * W) > (10 << 20):
-        cb //= 2
-    return cb
-
-
-def _make_swb_kernel(track: bool):
-    """Banded SW, skewed frame: one grid step = CB candidates, band of
-    W query columns on lanes.  The band slides one query column per
-    subject row, so in band coordinates the DIAGONAL predecessor stays
-    at the same lane, the query-gap predecessor (E) shifts one lane
-    left, and the subject-gap F is the usual in-row prefix-max.
-
-    The band frame slides via pltpu.roll of ONE query-code plane
-    [CB, QB], with the profile row built in-kernel from the 8x8 matrix
-    (a [CB,1] select chain on the subject code times a [CB,W] chain on
-    the query codes).  Round 3 rolled EIGHT precomputed profile planes
-    instead — at W=640 that moved ~8x more bytes per row than the DP
-    itself computed, which is why the long-read kernel measured 0.24
-    GCUPS (VERDICT r3 #5).
-
-    With `track`, the kernel also reports the row-major-first argmax
-    cell of T (subject row, band LANE; strictly-greater row updates,
-    min-lane within a row) in output lanes 1..2 — the anchor the
-    long-read host tail centres its narrow traceback band on.  A
-    0-scoring padded query lane's T never exceeds the running best
-    (same inductive argument as the full-matrix kernel), so the
-    anchor lands on a real cell."""
-
-    def _swb_kernel(qbuf_ref, sstate_ref, slen_ref, matrix_ref,
-                    params_ref, out_ref):
-        go = params_ref[0, 0]
-        ge = params_ref[0, 1]
-        CB = sstate_ref.shape[0]
-        S = sstate_ref.shape[-1]
-        W = out_ref.shape[-1]          # static band width (padded to 128x)
-        mat = matrix_ref[:, :]         # [8, 8]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (CB, W), 1)
-        jidx = lane
-        slens = slen_ref[:, 0]
-
-        def cummax(x):
-            d = 1
-            while d < W:
-                shifted = jnp.where(lane < d, NEG, pltpu.roll(x, d, 1))
-                x = jnp.maximum(x, shifted)
-                d *= 2
-            return x
-
-        def one_row(H, E, acc, qbuf, scol, r, i):
-            qsl = qbuf[:, r : r + W]           # query codes in band frame
-            # profile row: m_q[c] = mat[scol[c], q] ([CB,1] chain), then
-            # select by the query code ([CB,W] chain)
-            mrow = []
-            for q in range(8):
-                v = jnp.full(scol.shape, mat[0, q], jnp.int32)
-                for sa in range(1, 8):
-                    v = jnp.where(scol == sa, mat[sa, q], v)
-                mrow.append(v)
-            Wrow = jnp.broadcast_to(mrow[0], qsl.shape)
-            for q in range(1, 8):
-                Wrow = jnp.where(qsl == q, mrow[q], Wrow)
-            T = H + Wrow                       # diagonal: same band lane
-            E_in = jnp.where(lane >= W - 1, NEG, pltpu.roll(E, W - 1, 1))
-            H0 = jnp.maximum(jnp.maximum(T, E_in), 0)
-            c = H0 + jidx * ge
-            cm = cummax(c)
-            cm_shift = jnp.where(lane < 1, NEG, pltpu.roll(cm, 1, 1))
-            F = cm_shift - go - (jidx - 1) * ge
-            Hn = jnp.maximum(H0, F)
-            En = jnp.maximum(E_in - ge, Hn - go)
-            keep = (i < slens)[:, None]
-            Hn = jnp.where(keep, Hn, H)
-            En = jnp.where(keep, En, E)
-            if track:
-                best, bi, bl = acc
-                rowmax = jnp.max(T, axis=1, keepdims=True)     # [CB, 1]
-                upd = keep & (rowmax > best)
-                minlane = jnp.min(jnp.where(T == rowmax, lane, 1 << 28),
-                                  axis=1, keepdims=True)
-                best = jnp.where(upd, rowmax, best)
-                bi = jnp.where(upd, i, bi)
-                bl = jnp.where(upd, minlane, bl)
-                acc = (best, bi, bl)
-            else:
-                acc = jnp.where(keep, jnp.maximum(acc, T), acc)
-            return Hn, En, acc
-
-        def body(i, carry):
-            H, E, acc, qbuf, sstate = carry
-            for r in range(BAND_UNROLL):
-                H, E, acc = one_row(H, E, acc, qbuf,
-                                    sstate[:, r : r + 1], r,
-                                    BAND_UNROLL * i + r)
-            return (H, E, acc,
-                    pltpu.roll(qbuf, qbuf.shape[-1] - BAND_UNROLL, 1),
-                    pltpu.roll(sstate, S - BAND_UNROLL, 1))
-
-        H0 = jnp.zeros((CB, W), jnp.int32)
-        E0 = jnp.full((CB, W), NEG, jnp.int32)
-        if track:
-            acc0 = (jnp.zeros((CB, 1), jnp.int32),
-                    jnp.zeros((CB, 1), jnp.int32),
-                    jnp.zeros((CB, 1), jnp.int32))
-        else:
-            acc0 = jnp.zeros((CB, W), jnp.int32)
-        _, _, acc, _, _ = jax.lax.fori_loop(
-            0, S // BAND_UNROLL, body,
-            (H0, E0, acc0, qbuf_ref[:, :], sstate_ref[:, :]))
-        if track:
-            best, bi, bl = acc
-            lo = jax.lax.broadcasted_iota(jnp.int32, (CB, W), 1)
-            out_ref[:, :] = jnp.where(
-                lo == 0, jnp.maximum(best, 0),
-                jnp.where(lo == 1, bi, jnp.where(lo == 2, bl, 0)))
-        else:
-            best = jnp.maximum(jnp.max(acc, axis=1), 0)
-            out_ref[:, :] = jnp.broadcast_to(best[:, None], (CB, W))
-
-    return _swb_kernel
-
-
-_swb_kernel = _make_swb_kernel(track=False)
-_swb_kernel_track = _make_swb_kernel(track=True)
-
-
-@functools.partial(jax.jit, static_argnames=("W", "interpret", "track"))
-def _swb_batch_call(qbuf, subj, slens, matrix, params, W, interpret=False,
-                    track=False):
-    B = subj.shape[0]
-    S = subj.shape[1]
-    QB = qbuf.shape[-1]
-    CB = min(_band_cb(W, QB, S), B)
-    grid = (B // CB,)
-    out = pl.pallas_call(
-        _swb_kernel_track if track else _swb_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((CB, QB), lambda b: (b, 0)),
-            pl.BlockSpec((CB, S), lambda b: (b, 0)),
-            pl.BlockSpec((CB, 1), lambda b: (b, 0)),
-            pl.BlockSpec((8, 8), lambda b: (0, 0)),
-            pl.BlockSpec((1, 4), lambda b: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((CB, W), lambda b: (b, 0)),
-        out_shape=jax.ShapeDtypeStruct((B, W), jnp.int32),
-        interpret=interpret,
-    )(qbuf, subj, slens, matrix, params)
-    if track:
-        return out[:, 0], out[:, 1], out[:, 2]
-    return out[:, 0]
+    Q = qcodes.shape[1]
+    if band_pad is not None and Q > LONG_READ_Q:
+        return sw_band_score_ref(qcodes, subj, slens, matrix, gapopen_pos,
+                                 gapext_pos, band_pad,
+                                 band_width_for(Q, band_pad), track=track)
+    return sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos,
+                        gapext_pos, track=track)
 
 
 def band_width_for(Q: int, pad: int) -> int:
     """Band width for a long-read window: wide enough to absorb the
     window pad (diagonal placement slack) plus ~3% indel drift each
-    way, rounded to the 128-lane tile."""
+    way, rounded to a multiple of 128."""
     need = 2 * pad + 2 * max(32, Q // 32)
     return max(128, -(-need // 128) * 128)
 
 
-def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos,
-                        gapext_pos, pad: int, W: int = 0,
-                        interpret=None, track=False):
+def sw_band_score_ref(qcodes, subj, slens, matrix, gapopen_pos,
+                      gapext_pos, pad: int, W: int, track=False):
     """Banded batched SW scores for LONG reads: cost O(W*S) instead of
     O(Q*S) (the device analogue of the reference's banded host pass,
     rmap.c:888-896).  Subject row i covers query columns
-    [i - pad - W/2, i - pad + W/2): `pad` must be the window's left
-    backoff (window_pad) so the seed diagonal sits mid-band.  Scores
-    equal the full-matrix kernel whenever the optimal alignment stays
-    inside the band; otherwise they lower-bound it.
+    [i - pad - W/2, i - pad + W/2): `pad` is the window's left backoff
+    (window_pad), so the seed diagonal sits mid-band.  In band
+    coordinates the diagonal predecessor stays at the same lane, the
+    query-gap predecessor (E) shifts one lane left, and the subject-gap
+    F is the usual in-row prefix max.  Scores equal the full matrix
+    whenever the optimal alignment stays inside the band; otherwise
+    they lower-bound it.
 
-    With track=True returns (scores, ti, tj): the row-major-first
-    argmax cell in (subject row, QUERY column) coordinates — the
-    host tail centres its narrow traceback band on the end diagonal
-    tj - ti instead of covering the whole device band."""
-    assert gapopen_pos >= gapext_pos
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    qcodes = jnp.asarray(qcodes, jnp.int32)
-    subj = jnp.asarray(subj, jnp.int32)
-    slens = jnp.asarray(slens, jnp.int32)
-    matrix = jnp.asarray(matrix, jnp.int32)
-    B, Q = qcodes.shape
-    S = subj.shape[1]
-    if not W:
-        W = band_width_for(Q, pad)
-    W = min(W, -(-Q // 128) * 128 + 128)
-    prepad = pad + W // 2
-    Sp = -(-S // 128) * 128
-    # query buffer in band frame: lane t at subject row i reads query
-    # column i - prepad + t; rolls consume S + W lanes total
-    QB = -(-(Sp + W) // 128) * 128
-    qbuf = jnp.full((B, QB), 7, jnp.int32)
-    take = min(Q, QB - prepad)
-    qbuf = jax.lax.dynamic_update_slice(qbuf, qcodes[:, :take],
-                                        (0, prepad))
-    CB = _band_cb(W, QB, Sp)
-    Bp = -(-B // max(CB, 1)) * max(CB, 1)
-    qbuf = _pad_to(qbuf, Bp, 0, 7)
-    subj = _pad_to(_pad_to(subj, Sp, 1, 7), Bp, 0)
-    slens = _pad_to(slens, Bp, 0)
-    params = jnp.asarray([[gapopen_pos, gapext_pos, W, 0]], jnp.int32)
-    out = _swb_batch_call(qbuf, subj, slens[:, None], matrix, params, W,
-                          interpret=interpret, track=track)
-    if track:
-        sc, ti, tl = out
-        return sc[:B], ti[:B], (ti + tl - prepad)[:B]
-    return out[:B]
-
-
-def sw_band_score_ref(qcodes, subj, slens, matrix, gapopen_pos,
-                      gapext_pos, pad: int, W: int, track=False):
-    """Pure-jnp oracle of the banded recurrence (band frame).
-    track=True adds the row-major-first argmax cell in
-    (subject row, query column) coordinates, like the kernel."""
+    track=True adds the row-major-first argmax cell in (subject row,
+    QUERY column) coordinates: the host tail centres its narrow
+    traceback band on the end diagonal tj - ti instead of covering the
+    whole device band."""
     qcodes = jnp.asarray(qcodes, jnp.int32)
     subj = jnp.asarray(subj, jnp.int32)
     slens = jnp.asarray(slens, jnp.int32)
@@ -529,9 +141,9 @@ def sw_band_score_ref(qcodes, subj, slens, matrix, gapopen_pos,
 
 def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos, gapext_pos,
                  track=False):
-    """Pure-jnp reference of the same recurrence (kernel oracle and
-    fallback when Pallas is unavailable).  track=True adds the
-    row-major-first argmax cell, like sw_score_batch."""
+    """Full-matrix batched SW scores (the recurrence of the module
+    docstring).  track=True adds the row-major-first argmax cell, as
+    `sw_scores` documents."""
     qcodes = jnp.asarray(qcodes, jnp.int32)
     subj = jnp.asarray(subj, jnp.int32)
     slens = jnp.asarray(slens, jnp.int32)

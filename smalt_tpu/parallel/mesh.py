@@ -1,7 +1,7 @@
 """Device-resident index and the SPMD mapping step.
 
 The reference scales with a pthreads pipeline over shared memory
-(threads.c:726-1014); the TPU-native equivalent is SPMD over a
+(threads.c:726-1014); the device equivalent is SPMD over a
 `jax.sharding.Mesh`:
 
   * `dp` axis — read batches are data-parallel across chips
@@ -15,7 +15,7 @@ The reference scales with a pthreads pipeline over shared memory
 
 `device_map_step` is the fully-jitted fast mapping step: k-mer word
 extraction -> binary-search index lookup -> rarest-seed selection ->
-diagonal-run voting -> windowed reference gather -> batched Pallas SW
+diagonal-run voting -> windowed reference gather -> batched SW
 scoring.  It returns, per read: best/second score, diagonal, strand.
 This is the high-throughput first pass; the exact-parity traceback and
 SAM emission run on host over the tiny set of survivors (the
@@ -23,38 +23,23 @@ reference's own two-pass structure, rmap.c:588-928).
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map as _shard_map_raw  # jax >= 0.8
-    _SM_KW = {"check_vma": False}
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_raw
-    _SM_KW = {"check_rep": False}
-
-
-def shard_map(f, mesh, in_specs, out_specs, **_ignored):
-    return _shard_map_raw(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, **_SM_KW)
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..seq import codec
 from ..index.table import KmerIndex
 from ..seq.refset import RefSet
-from ..ops.sw import (sw_score_batch, sw_score_ref, sw_band_score_batch,
-                      band_width_for)
+from ..ops.sw import LONG_READ_Q, sw_scores
 
 from ..map.fastmode import LONG_READ_Q as _FT_LONG_READ_Q
 
-LONG_READ_Q = 512   # above this, windows score with the banded kernel:
-                    # O(band*S) instead of O(Q*S) (rmap.c:888-896 analog)
 assert LONG_READ_Q == _FT_LONG_READ_Q, \
-    "kernel-selection boundary desync: fix map/fastmode.py AND the " \
+    "scorer-selection boundary desync: fix map/fastmode.py AND the " \
     "512 literals in native/fastlane.c"
 
 NSEED = 16        # rarest query k-mers expanded per strand
@@ -294,8 +279,7 @@ def _lookup(di: DeviceIndex, qwords, valid):
 
     Direct-table path: two gathers from the cumulative-offset table.
     Fallback: batched binary search (method='sort' batches all queries
-    through one sort instead of the default scan path, which lowers to
-    a slow while_loop on TPU)."""
+    through one sort instead of the default scan path's while_loop)."""
     if di.table is not None:
         pair = di.table[qwords]                  # [..., 2]: one gather
         s0 = pair[..., 0]
@@ -332,9 +316,7 @@ def _expand_hits(di: DeviceIndex, base, counts, qoffs, is_reverse):
 def _merge_sorted_asc(a, b):
     """Bitonic merge of two equal-width power-of-2 ascending rows:
     concat(a, reverse(b)) is bitonic; log2(2w) compare-exchange
-    stages sort it.  3x cheaper than re-sorting the concatenation on
-    the CPU emulator (measured 11 vs 32 ms at 4x120/2048 rows) and
-    the natural shape for the TPU VPU."""
+    stages sort it, instead of re-sorting the concatenation."""
     B = a.shape[0]
     m = jnp.concatenate([a, b[:, ::-1]], axis=1)
     n = m.shape[1]
@@ -496,7 +478,7 @@ def device_seed_votes_sharded(di: DeviceIndex, reads, gb, axis="ip"):
     (votes, diagonal) winners — per-shard seed selection, per-shard
     MAXC budgets and boundary-split diagonal clusters all made the
     sharded decision differ from the unsharded one on repeat reads
-    (MULTICHIP_r04: 13/9733 mapq>6).  This version exchanges the hit
+    (13 of 9,733 reads at mapq > 6).  This version exchanges the hit
     COUNTS and the expanded SHIFT MULTISET instead:
 
       1. psum the per-query-word hit counts -> the global counts the
@@ -614,8 +596,7 @@ def device_seed_votes_sharded(di: DeviceIndex, reads, gb, axis="ip"):
     return outs, hits_used, hits_tot
 
 
-def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos, gapext_pos,
-                    interpret=None):
+def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos, gapext_pos):
     """Fast mapping step for a padded read batch.
 
     reads: [B, Q] integer mangled-alpha codes (0..7), padded reads
@@ -660,24 +641,14 @@ def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos, gapext_pos,
     qcs = jnp.concatenate([qc_f, qc_r, qc_2], axis=0)
     slens = jnp.full((3 * B,), S, jnp.int32)
     has_seed = votes > 0
-    if Q > LONG_READ_Q:
-        # kilobase reads: banded scoring around the seed diagonal — the
-        # window gather placed it `pad` columns in, so the band covers
-        # the drift the window slack was sized for.  The tracked argmax
-        # anchors the host tail's NARROW band (centred on the end
-        # diagonal tj - ti) instead of a band covering the whole device
-        # band; the tail verifies score >= device score and widens on a
-        # miss, so the anchor is a pure accelerator.
-        scores, tis, tjs = sw_band_score_batch(qcs, wins, slens, matrix,
-                                               gapopen_pos, gapext_pos,
-                                               pad=pad,
-                                               W=band_width_for(Q, pad),
-                                               interpret=interpret,
-                                               track=True)
-    else:
-        scores, tis, tjs = sw_score_batch(qcs, wins, slens, matrix,
-                                          gapopen_pos, gapext_pos,
-                                          interpret=interpret, track=True)
+    # kilobase reads score in a band around the seed diagonal: the
+    # window gather placed it `pad` columns in, so the band covers the
+    # drift the window slack was sized for.  The tracked argmax anchors
+    # the host tail's NARROW band (centred on the end diagonal tj - ti);
+    # the tail verifies score >= device score and widens on a miss, so
+    # the anchor is a pure accelerator.
+    scores, tis, tjs = sw_scores(qcs, wins, slens, matrix, gapopen_pos,
+                                 gapext_pos, track=True, band_pad=pad)
     scores = jnp.where(has_seed, scores, 0)
     v1 = jnp.where(sel_rev, v1r, v1f)
     return _pick_best(scores.reshape(3, B), starts.reshape(3, B),
@@ -735,9 +706,8 @@ OUT_KEYS = ("score", "score2", "start", "strand", "start2", "strand2",
 
 def pack_outputs(out):
     """Stack the per-read output dict into ONE [len(OUT_KEYS), B] int32
-    array ON DEVICE: over a high-latency host link (tunnel-attached
-    chips) each fetched array pays a full round trip, so the pipeline
-    fetches a single packed array per batch instead of ten."""
+    array ON DEVICE, so the pipeline starts one device-to-host copy per
+    batch instead of one per output."""
     return jnp.stack([out[k].astype(jnp.int32) for k in OUT_KEYS])
 
 
@@ -930,8 +900,7 @@ def _combine_over_ip(score, score2, start, strand, start2, strand2,
 
 
 def make_index_sharded_step(sdi: ShardedDeviceIndex, mesh: Mesh, matrix,
-                            gapopen_pos, gapext_pos, interpret=None,
-                            pack=False):
+                            gapopen_pos, gapext_pos, pack=False):
     """SPMD mapping step with a REAL range-sharded index over `ip`:
     reads are data-parallel over `dp` and replicated over `ip`; each
     `ip` member runs seeding + diagonal voting on its own index shard
@@ -1035,9 +1004,8 @@ def make_index_sharded_step(sdi: ShardedDeviceIndex, mesh: Mesh, matrix,
         qcs = qc3[rows]
         wins = content[rows]
         slens = jnp.where(pad_row, 0, S)
-        sc, ti, tj = sw_score_batch(qcs, wins, slens, matrix,
-                                    gapopen_pos, gapext_pos,
-                                    interpret=interpret, track=True)
+        sc, ti, tj = sw_scores(qcs, wins, slens, matrix, gapopen_pos,
+                               gapext_pos, track=True)
         # scatter my slice to [3B] (+1 dump slot for pad rows), psum:
         # each window is scored by exactly one shard
         dump = jnp.where(pad_row, N3, rows)
@@ -1064,8 +1032,8 @@ def make_index_sharded_step(sdi: ShardedDeviceIndex, mesh: Mesh, matrix,
     if hilo:
         in_specs += [P("ip", None, None), P("ip", None)]
     out_specs = {k: P("dp") for k in OUT_KEYS}
-    fn = shard_map(step, mesh=mesh, in_specs=tuple(in_specs),
-                   out_specs=out_specs, check_rep=False)
+    fn = jax.shard_map(step, mesh=mesh, in_specs=tuple(in_specs),
+                       out_specs=out_specs, check_vma=False)
     if pack:
         jfn = jax.jit(lambda *a: pack_outputs(fn(*a)))
     else:
@@ -1081,14 +1049,12 @@ def make_index_sharded_step(sdi: ShardedDeviceIndex, mesh: Mesh, matrix,
     return run
 
 
-def make_device_step(di: DeviceIndex, matrix, gapopen_pos, gapext_pos,
-                     interpret=None, pack=False):
-    """Single-device jitted mapping step with the index arrays passed
-    as jit ARGUMENTS (pytree leaves), not closure constants — large
-    closed-over arrays (the 256 MB direct table) otherwise get baked
-    into the HLO and blow up remote-compile request limits.
-    pack=True returns the packed [len(OUT_KEYS), B] int32 array
-    (one host fetch per batch) instead of the dict."""
+def _index_args(di: DeviceIndex):
+    """(arrays, meta) of a DeviceIndex: the arrays travel as jit
+    ARGUMENTS (pytree leaves), not closure constants — large
+    closed-over arrays (the 512 MB direct table) otherwise get baked
+    into the HLO as constants, and a mesh step would move them again
+    on every call."""
     arrs = {"words": di.words, "starts": di.starts, "pos": di.pos,
             "ref": di.ref_alpha}
     if di.table is not None:
@@ -1096,42 +1062,52 @@ def make_device_step(di: DeviceIndex, matrix, gapopen_pos, gapext_pos,
     if di.words_lo is not None:
         arrs["hi_table"] = di.hi_table
         arrs["words_lo"] = di.words_lo
-    meta = (di.wordlen, di.nskip, di.ref_len, di.lo_steps)
+    return arrs, (di.wordlen, di.nskip, di.ref_len, di.lo_steps)
 
-    @functools.partial(jax.jit, static_argnames=())
+
+def _index_from_args(arrs, meta) -> DeviceIndex:
+    return DeviceIndex(wordlen=meta[0], nskip=meta[1],
+                       words=arrs["words"], starts=arrs["starts"],
+                       pos=arrs["pos"], ref_alpha=arrs["ref"],
+                       ref_len=meta[2], table=arrs.get("table"),
+                       hi_table=arrs.get("hi_table"),
+                       words_lo=arrs.get("words_lo"), lo_steps=meta[3])
+
+
+def make_device_step(di: DeviceIndex, matrix, gapopen_pos, gapext_pos,
+                     pack=False):
+    """Single-device jitted mapping step, the index arrays passed as
+    jit arguments (`_index_args`).
+    pack=True returns the packed [len(OUT_KEYS), B] int32 array
+    (one host fetch per batch) instead of the dict."""
+    arrs, meta = _index_args(di)
+
+    @jax.jit
     def step(reads, arrs):
-        d = DeviceIndex(wordlen=meta[0], nskip=meta[1],
-                        words=arrs["words"], starts=arrs["starts"],
-                        pos=arrs["pos"], ref_alpha=arrs["ref"],
-                        ref_len=meta[2], table=arrs.get("table"),
-                        hi_table=arrs.get("hi_table"),
-                        words_lo=arrs.get("words_lo"),
-                        lo_steps=meta[3])
-        out = device_map_step(d, reads, matrix, gapopen_pos, gapext_pos,
-                              interpret=interpret)
+        out = device_map_step(_index_from_args(arrs, meta), reads, matrix,
+                              gapopen_pos, gapext_pos)
         return pack_outputs(out) if pack else out
 
     return lambda reads: step(reads, arrs)
 
 
 def make_sharded_step(di: DeviceIndex, mesh: Mesh, matrix,
-                      gapopen_pos, gapext_pos, interpret=None,
-                      pack=False):
+                      gapopen_pos, gapext_pos, pack=False):
     """SPMD mapping step over a ('dp', 'ip') mesh.
 
-    Reads shard over `dp`.  The index position list and reference shard
-    over `ip` conceptually; at the current genome scales both fit in one
-    HBM, so the arrays are replicated and each `ip` member scans a
-    disjoint slice of the diagonal space; per-read results combine with
-    a max over `ip` (jax.lax.pmax) — the collective pattern that carries
-    over unchanged when pos[] is truly range-sharded.
+    Reads shard over `dp`.  The index arrays are replicated over the
+    mesh once, here, and passed as jit arguments (`_index_args`); each
+    `ip` member scans a disjoint slice of the diagonal space and
+    per-read results combine with a max over `ip` (jax.lax.pmax).
+    make_index_sharded_step range-shards the index instead.
     """
-    dp = mesh.shape["dp"]
     ip = mesh.shape.get("ip", 1)
+    arrs, meta = _index_args(di)
+    arrs = jax.device_put(arrs, NamedSharding(mesh, P()))
 
-    def step(reads):
-        out = device_map_step(di, reads, matrix, gapopen_pos, gapext_pos,
-                              interpret=interpret)
+    def step(reads, arrs):
+        out = device_map_step(_index_from_args(arrs, meta), reads, matrix,
+                              gapopen_pos, gapext_pos)
         if ip > 1:
             out = _combine_over_ip(out["score"], out["score2"],
                                    out["start"], out["strand"],
@@ -1142,10 +1118,8 @@ def make_sharded_step(di: DeviceIndex, mesh: Mesh, matrix,
                                    tb_i=out["tb_i"], tb_j=out["tb_j"])
         return out
 
-    specs_in = P("dp", None)
-    specs_out = {k: P("dp") for k in OUT_KEYS}
-    fn = shard_map(step, mesh=mesh, in_specs=(specs_in,),
-                   out_specs=specs_out, check_rep=False)
-    if pack:
-        return jax.jit(lambda reads: pack_outputs(fn(reads)))
-    return jax.jit(fn)
+    fn = jax.shard_map(step, mesh=mesh, in_specs=(P("dp", None), P()),
+                       out_specs={k: P("dp") for k in OUT_KEYS},
+                       check_vma=False)
+    jfn = jax.jit((lambda r, a: pack_outputs(fn(r, a))) if pack else fn)
+    return lambda reads: jfn(reads, arrs)

@@ -47,8 +47,7 @@ def test_device_placement_bigk(genome_world, k, nskip):
             s = s.translate(comp)[::-1]
         arr[i] = codec.alpha(codec.encode(s.encode()))
         truth.append((st, i % 2 == 1))
-    out = device_map_step(di, jnp.asarray(arr), m, -go, -ge,
-                          interpret=True)
+    out = device_map_step(di, jnp.asarray(arr), m, -go, -ge)
     score = np.asarray(out["score"])
     start = np.asarray(out["start"])
     strand = np.asarray(out["strand"])
@@ -84,8 +83,7 @@ def test_bigk_matches_host_engine(genome_world):
     open(fq, "w").write("".join(recs))
 
     buf_fast = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf_fast, nthreads=1, batch=32,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf_fast, nthreads=1, batch=32)
     eng = MapEngine(refset, idx, MapParams())
     buf_exact = io.StringIO()
     run_pipeline(eng, FastqReader(fq), buf_exact, refset, nthreads=1)
@@ -139,14 +137,12 @@ def test_sharded_bigk(genome_world):
             s = s.translate(comp)[::-1]
         arr[i] = codec.alpha(codec.encode(s.encode()))
     di = DeviceIndex.build(refset, idx)
-    single = device_map_step(di, jnp.asarray(arr), m, -go, -ge,
-                             interpret=True)
+    single = device_map_step(di, jnp.asarray(arr), m, -go, -ge)
     sdi = ShardedDeviceIndex.build(refset, idx, n_shards=2)
     assert sdi.words_lo is not None
     devs = np.array(jax.devices()[:4]).reshape(2, 2)
     mesh = Mesh(devs, ("dp", "ip"))
-    step = make_index_sharded_step(sdi, mesh, m, -go, -ge,
-                                   interpret=True)
+    step = make_index_sharded_step(sdi, mesh, m, -go, -ge)
     sharded = step(jnp.asarray(arr))
     for k in ("score", "start", "strand"):
         a = np.asarray(single[k])

@@ -91,8 +91,7 @@ def _device_run(eng, refset, idx, reads, sels, mincovs, H=512, C=16):
                      B=B, Q=128, H=H, C=C, V=refset.nseq)
     di = DeviceIndex.build(refset, idx)
     step = build_exact_collate(di, eng._seq_ivals, np.asarray(eng.matrix),
-                               -eng.gapopen, -eng.gapext, cfg,
-                               on_tpu=False)
+                               -eng.gapopen, -eng.gapext, cfg)
     codes = np.zeros((B, 128), np.uint8)
     qbad = np.zeros((B, 128), bool)
     qlens = np.full(B, QLEN, np.int32)
@@ -246,7 +245,7 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch):
     from smalt_tpu.map.fastlane import FastLane
     lane = FastLane.make(eng2, "sam", True, False, False, False)
     dev = DeviceExact.make(eng2, "sam", True, False, False, False,
-                           batch=64, interpret=True)
+                           batch=64)
     assert dev is not None
     sink = io.StringIO()
 
@@ -311,7 +310,7 @@ def test_end_to_end_host_hits_byte_identical(tmp_path):
     eng2 = MapEngine(refset, idx, MapParams())
     lane = FastLane.make(eng2, "sam", True, False, False, False)
     dev = DeviceExact.make(eng2, "sam", True, False, False, False,
-                           batch=64, interpret=True)
+                           batch=64)
     assert dev is not None and dev._host_hits
     sink = io.StringIO()
     dev.run_raw_fastq(str(fq), sink,
@@ -386,7 +385,7 @@ def test_end_to_end_multiseq_bigk_byte_identical(tmp_path, monkeypatch,
     eng2 = MapEngine(refset, idx, MapParams())
     lane = FastLane.make(eng2, "sam", True, False, False, False)
     dev = DeviceExact.make(eng2, "sam", True, False, False, False,
-                           batch=64, interpret=True)
+                           batch=64)
     assert dev is not None and dev._host_hits
     sink = io.StringIO()
     dev.run_raw_fastq(str(fq), sink,

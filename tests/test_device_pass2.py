@@ -216,22 +216,20 @@ def test_oracle_vs_host(seed):
     assert n_suspect <= n_checked // 10   # suspects must stay rare
 
 
-def test_kernel_interpret_vs_oracle():
-    """Pallas kernel (interpret) == oracle on a mixed batch."""
-    from smalt_tpu.parallel.exact_pass2 import (_swq_call,
-                                                swq_fill_walk_ref)
-    import jax.numpy as jnp
+def test_pass2_step_vs_host():
+    """The jitted build_pass2_step (strand resolve + subject gather from
+    the resident reference + fill/walk + packed output) against the
+    host C track DP and walk, on both strands."""
+    from smalt_tpu.parallel.exact_pass2 import (build_pass2_step,
+                                                unpack_pass2)
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(4)
     matrix = default_matrix()
     gi, ge = 4, 3
-    Qp, Sp = 128, 96
-    W = 32
-    qa = np.full((W, Qp), 7, np.int32)
-    sj = np.full((W, Sp), 7, np.int32)
-    par = np.zeros((W, 8), np.int32)
-    k = 0
-    while k < W:
+    Qp, Sp = 128, 192
+    cases, reads, ref, wd = [], [], [], []
+    gstart = 0
+    while len(cases) < 64:
         qlen, qalpha, subj, slen, cqs, cqe, bl, br, W8 = \
             gen_case(rng, matrix, gi, ge)
         if slen > Sp or qlen > Qp:
@@ -240,26 +238,45 @@ def test_kernel_interpret_vs_oracle():
             band = AliBand.make(bl, br, cqs, cqe, qlen, 0, slen - 1, slen)
         except BandError:
             continue
-        qa[k, :qlen] = qalpha
-        sj[k, : len(subj)] = subj
-        par[k] = [band.l_edge, band.r_edge, band.q_left, band.q_len,
-                  band.s_len, 1, band.s_left, 0]
-        k += 1
-    b0, i0, j0, r0 = (np.asarray(x) for x in swq_fill_walk_ref(
-        qa, sj, par, matrix, gi, ge))
-    # kernel par layout: {slen, le, re, ql, qn, sl, 0, 0}
-    par_v = np.zeros((W, 8), np.int32)
-    par_v[:, 0] = par[:, 4]
-    par_v[:, 1:5] = par[:, 0:4]
-    par_v[:, 5] = par[:, 6]
-    sm = np.asarray([[gi, ge]], np.int32)
-    b1, i1, j1, r1 = (np.asarray(x) for x in _swq_call(
-        jnp.asarray(qa), jnp.asarray(sj), jnp.asarray(par_v),
-        jnp.asarray(matrix), jnp.asarray(sm), Sp, interpret=True))
-    np.testing.assert_array_equal(b1, b0)
-    np.testing.assert_array_equal(i1, i0)
-    np.testing.assert_array_equal(j1, j0)
-    np.testing.assert_array_equal(r1, r0)
+        k = len(cases)
+        is_rev = k % 2
+        read = qalpha
+        if is_rev:             # the step revcomps it back to qalpha
+            std = (qalpha & 4) == 0
+            read = np.where(std, qalpha ^ 3, qalpha)[::-1]
+        reads.append(read)
+        ref.append(subj)
+        wd.append([gstart, band.s_len, k, is_rev, band.l_edge,
+                   band.r_edge, band.q_left, band.q_len, band.s_left,
+                   slen, 0, 0])
+        gstart += slen
+        cases.append((qalpha, subj, band, W8, qlen))
+    codes = np.full((len(cases), Qp), 7, np.uint8)
+    qlens = np.zeros(len(cases), np.int32)
+    for k, r in enumerate(reads):
+        codes[k, : len(r)] = r
+        qlens[k] = len(r)
+    ref_alpha = np.concatenate(ref).astype(np.uint8)
+    step = build_pass2_step(matrix.tobytes(), matrix.shape, gi, ge)
+    flat = step(ref_alpha, codes, qlens, np.asarray(wd, np.int32), Sp)
+    best, bi, bj, rec = unpack_pass2(np.asarray(flat), len(cases), Sp)
+    n_checked = n_suspect = 0
+    for w, (qalpha, subj, band, W8, qlen) in enumerate(cases):
+        sc, mi, mj, dirm = host_track(W8, qlen, subj, band, gi, ge)
+        assert int(best[w]) == sc, (w, int(best[w]), sc)
+        if sc <= 0:
+            continue
+        assert (int(bi[w]), int(bj[w])) == (mi, mj), w
+        hw = host_walk(W8, qlen, subj, band, mi, mj, sc, dirm, gi, ge)
+        dec = decode_rec(W8, subj, band.s_left, band.q_left, mi, mj, sc,
+                         rec[w], gi, ge)
+        n_checked += 1
+        if dec is None:
+            n_suspect += 1
+            continue
+        assert dec == hw, w
+    assert n_checked >= 20
+    assert n_suspect <= n_checked // 10
 
 
 @pytest.mark.parametrize("seed", [5, 6])

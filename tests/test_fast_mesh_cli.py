@@ -47,7 +47,7 @@ def _run(world, mesh_spec):
     refset, idx, fq = world
     buf = io.StringIO()
     run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=32,
-                      interpret=True, mesh_spec=mesh_spec)
+                      mesh_spec=mesh_spec)
     return buf.getvalue()
 
 

@@ -52,7 +52,7 @@ def _pairs_fastq(tmp, frags, orient):
 def _map(refset, idx, fq1, fq2, libcode, ihist=None):
     buf = io.StringIO()
     run_fast_pipeline(refset, idx, fq1, buf, nthreads=1, batch=32,
-                      interpret=True, mates_path=fq2, insert_min=0,
+                      mates_path=fq2, insert_min=0,
                       insert_max=500, libcode=libcode, ihist=ihist)
     recs = {}
     for ln in buf.getvalue().splitlines():

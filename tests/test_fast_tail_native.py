@@ -39,8 +39,7 @@ def _device_outs(refset, idx, seqs, Q):
     di = DeviceIndex.build(refset, idx)
     m, go, ge = ali.make_score_matrix()
     arr = encode_batch(seqs, Q)
-    out = device_map_step(di, jnp.asarray(arr), m, -go, -ge,
-                          interpret=True)
+    out = device_map_step(di, jnp.asarray(arr), m, -go, -ge)
     return ({k: np.asarray(v) for k, v in out.items()},
             window_len(Q), window_pad(Q))
 

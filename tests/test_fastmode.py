@@ -59,8 +59,7 @@ def test_batch_reader_roundtrip(simulated):
 def test_fast_pipeline_accuracy(simulated):
     refset, idx, fq, truth, qlen = simulated
     buf = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=64,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=64)
     lines = [l for l in buf.getvalue().splitlines() if l]
     assert len(lines) == len(truth)
     offsets = refset.offsets
@@ -135,7 +134,7 @@ def test_fast_pipeline_paired(simulated_pairs):
     refset, idx, fq1, fq2, truth, qlen, insert = simulated_pairs
     buf = io.StringIO()
     run_fast_pipeline(refset, idx, fq1, buf, nthreads=1, batch=64,
-                      interpret=True, mates_path=fq2,
+                      mates_path=fq2,
                       insert_min=0, insert_max=500)
     lines = [l.split("\t") for l in buf.getvalue().splitlines() if l]
     assert len(lines) == 2 * len(truth)
@@ -169,8 +168,7 @@ def test_fast_concordance_with_exact(simulated, indexed):
     asserted >=98% here on the small simulated set)."""
     refset, idx, fq, truth, qlen = simulated
     buf_fast = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf_fast, nthreads=1, batch=64,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf_fast, nthreads=1, batch=64)
     from smalt_tpu.map.engine import MapEngine, MapParams
     from smalt_tpu.map.pipeline import run_pipeline
     from smalt_tpu.seq.io import FastqReader
@@ -249,8 +247,7 @@ def test_fast_mode_contig_boundary_clamp(tmp_path_factory):
     fq = os.path.join(d, "r.fq")
     open(fq, "w").write("".join(recs))
     buf = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=32,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=32)
     lens = {f"c{i}": len(c) for i, c in enumerate(contigs)}
     nmapped = 0
     for ln in buf.getvalue().splitlines():
@@ -271,9 +268,7 @@ def test_fast_pipeline_worker_pool_deterministic(simulated):
     refset, idx, fq, truth, qlen = simulated
     import io as _io
     a = _io.StringIO()
-    run_fast_pipeline(refset, idx, fq, a, nthreads=1, batch=64,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, a, nthreads=1, batch=64)
     b = _io.StringIO()
-    run_fast_pipeline(refset, idx, fq, b, nthreads=2, batch=64,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, b, nthreads=2, batch=64)
     assert a.getvalue() == b.getvalue()

@@ -2,7 +2,7 @@
 SMALT 0.7.6 run as `smalt index -k 13 -s 4; smalt map -f sam -r 1` on the
 bundled genome + simulated reads (fixtures generated with misc/simread).
 
-This is the TPU analogue of the reference's Python test drivers
+This is the analogue of the reference's Python test drivers
 (test/mthread_test.py, test/cigar_test.py)."""
 import gzip
 import io

@@ -1,10 +1,6 @@
-"""End-to-end kilobase concordance: fast mode (banded device kernel +
+"""End-to-end kilobase concordance: fast mode (banded device scorer +
 banded host tail) vs the exact engine on the same noisy long reads
 (BASELINE config 5's correctness axis; VERDICT r2 item 6).
-
-The banded Pallas kernel is swapped for its jnp oracle so the CPU run
-stays fast — kernel==oracle equality is covered by
-tests/test_sw_band_kernel.py.
 """
 import io
 
@@ -71,22 +67,10 @@ def _parse(text):
     return out
 
 
-def test_fast_vs_exact_kilobase(world, monkeypatch):
+def test_fast_vs_exact_kilobase(world):
     refset, idx, fq, truth = world
-    from smalt_tpu.ops.sw import sw_band_score_ref
-
-    def band_oracle(q, s, sl, mat, go, ge, pad, W=0, interpret=None,
-                    track=False):
-        if not W:
-            from smalt_tpu.ops.sw import band_width_for
-            W = band_width_for(q.shape[1], pad)
-        return sw_band_score_ref(q, s, sl, mat, go, ge, pad, W,
-                                 track=track)
-
-    monkeypatch.setattr(M, "sw_band_score_batch", band_oracle)
     buf = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=16,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=16)
     fast = _parse(buf.getvalue())
 
     from smalt_tpu.map.engine import MapEngine, MapParams
@@ -111,7 +95,7 @@ def test_fast_vs_exact_kilobase(world, monkeypatch):
 
 
 def test_anchor_is_pure_accelerator(world, monkeypatch):
-    """The banded kernel's argmax anchor only CENTRES the host tail's
+    """The banded scorer's argmax anchor only CENTRES the host tail's
     narrow band — a below-device-score result falls back to the wide
     band.  On this fixture suppressing every anchor (tis = -1, the
     legacy no-anchor contract) leaves the fast-mode SAM byte-identical;
@@ -119,32 +103,21 @@ def test_anchor_is_pure_accelerator(world, monkeypatch):
     wide-band margin alignment may differ — fastmode.py contract
     note), so this is a fixture-level regression guard."""
     refset, idx, fq, truth = world
-    from smalt_tpu.ops.sw import sw_band_score_ref, band_width_for
+    scores = M.sw_scores
 
-    def band_oracle(q, s, sl, mat, go, ge, pad, W=0, interpret=None,
-                    track=False):
-        if not W:
-            W = band_width_for(q.shape[1], pad)
-        return sw_band_score_ref(q, s, sl, mat, go, ge, pad, W,
-                                 track=track)
-
-    def band_oracle_noanchor(q, s, sl, mat, go, ge, pad, W=0,
-                             interpret=None, track=False):
-        out = band_oracle(q, s, sl, mat, go, ge, pad, W, interpret,
-                          track)
+    def scores_noanchor(*a, track=False, **k):
+        out = scores(*a, track=track, **k)
         if track:
             sc, ti, tj = out
             import jax.numpy as jnp
             return sc, jnp.full_like(ti, -1), jnp.full_like(tj, -1)
         return out
 
-    monkeypatch.setattr(M, "sw_band_score_batch", band_oracle)
     with_anchor = io.StringIO()
     run_fast_pipeline(refset, idx, fq, with_anchor, nthreads=1,
-                      batch=16, interpret=True)
+                      batch=16)
 
-    monkeypatch.setattr(M, "sw_band_score_batch", band_oracle_noanchor)
+    monkeypatch.setattr(M, "sw_scores", scores_noanchor)
     without = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, without, nthreads=1, batch=16,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, without, nthreads=1, batch=16)
     assert with_anchor.getvalue() == without.getvalue()

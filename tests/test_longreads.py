@@ -1,10 +1,6 @@
 """Long/noisy reads (454/PacBio regime — SURVEY §5 long-context axis):
 wide DP bands and split handling on the exact host path, and the
 device path's window/pad scaling with query length.
-
-The device test swaps the Pallas kernel for its pure-jnp oracle
-(sw_score_ref) so the CPU run stays fast; kernel==oracle equality is
-covered by tests/test_sw_kernel.py.
 """
 import numpy as np
 import pytest
@@ -53,16 +49,11 @@ def test_window_formulas_scale():
     assert M.window_pad(1000) >= 60     # indel drift slack grows with Q
 
 
-def test_device_path_long_reads(long_setup, monkeypatch):
+def test_device_path_long_reads(long_setup):
     rng, g, refset = long_setup
     idx = build_index(refset, 13, 4)
     di = M.DeviceIndex.build(refset, idx)
     from smalt_tpu.align import core as ali
-    from smalt_tpu.ops.sw import sw_score_ref
-    monkeypatch.setattr(
-        M, "sw_score_batch",
-        lambda q, s, sl, mat, go, ge, interpret=None:
-            sw_score_ref(q, s, sl, mat, go, ge))
     m, go, ge = ali.make_score_matrix()
     Q = 1000
     B = 8
@@ -76,8 +67,7 @@ def test_device_path_long_reads(long_setup, monkeypatch):
         codes = codec.alpha(codec.encode(s.encode())).astype(np.int32)
         reads[i, : len(codes)] = codes
         truth.append(st)
-    out = M.device_map_step(di, np.asarray(reads), m, -go, -ge,
-                            interpret=True)
+    out = M.device_map_step(di, np.asarray(reads), m, -go, -ge)
     score = np.asarray(out["score"])
     start = np.asarray(out["start"])
     pad = M.window_pad(Q)

@@ -1,5 +1,5 @@
 """Multi-device SPMD mapping step on the virtual 8-device CPU mesh —
-the TPU analogue of the reference's thread-determinism test
+the analogue of the reference's thread-determinism test
 (test/mthread_test.py): sharded and single-device runs must agree."""
 import numpy as np
 import pytest
@@ -42,7 +42,7 @@ def test_device_step_finds_perfect_reads(device_setup):
     rng = np.random.default_rng(3)
     B, Q = 16, 100
     reads, truth = _read_batch(refset, rng, B, Q)
-    out = device_map_step(di, reads, m, -go, -ge, interpret=True)
+    out = device_map_step(di, reads, m, -go, -ge)
     score = np.asarray(out["score"])
     strand = np.asarray(out["strand"])
     assert (score == Q).all()          # perfect alignments found
@@ -58,10 +58,10 @@ def test_sharded_step_matches_single_device(device_setup):
     B, Q = 32, 100
     reads, _ = _read_batch(refset, rng, B, Q)
 
-    single = device_map_step(di, reads, m, -go, -ge, interpret=True)
+    single = device_map_step(di, reads, m, -go, -ge)
 
     mesh = Mesh(np.array(devs[:8]).reshape(4, 2), ("dp", "ip"))
-    step = make_sharded_step(di, mesh, m, -go, -ge, interpret=True)
+    step = make_sharded_step(di, mesh, m, -go, -ge)
     with mesh:
         sharded = step(reads)
 
@@ -99,7 +99,7 @@ def test_index_sharded_step(device_setup):
         truth[i] = st
 
     mesh = Mesh(np.array(devs[:8]).reshape(4, 2), ("dp", "ip"))
-    step = make_index_sharded_step(sdi, mesh, m, -go, -ge, interpret=True)
+    step = make_index_sharded_step(sdi, mesh, m, -go, -ge)
     with mesh:
         out = step(jnp.asarray(reads))
     score = np.asarray(out["score"])
@@ -138,8 +138,7 @@ def test_repeat_ambiguity_detected(device_setup):
     for i in range(B):
         st = 20000 + 500 * i            # inside the first copy
         reads[i] = codec.alpha(rs2.codes[st : st + Q]).astype(np.int32)
-    out = device_map_step(di2, jnp.asarray(reads), m, -go, -ge,
-                          interpret=True)
+    out = device_map_step(di2, jnp.asarray(reads), m, -go, -ge)
     score = np.asarray(out["score"])
     second = np.asarray(out["score2"])
     assert (score == Q).all()
@@ -155,7 +154,7 @@ def test_dp_only_mesh(device_setup):
     B, Q = 16, 100
     reads, _ = _read_batch(refset, rng, B, Q)
     mesh = Mesh(np.array(devs[:8]).reshape(8, 1), ("dp", "ip"))
-    step = make_sharded_step(di, mesh, m, -go, -ge, interpret=True)
+    step = make_sharded_step(di, mesh, m, -go, -ge)
     with mesh:
         out = step(reads)
     assert (np.asarray(out["score"]) == Q).all()
@@ -197,7 +196,7 @@ def test_cross_shard_repeat_ambiguity(device_setup):
         st = 8000 + 400 * i
         reads[i] = codec.alpha(rs2.codes[st : st + Q]).astype(np.int32)
     mesh = Mesh(np.array(devs[:8]).reshape(4, 2), ("dp", "ip"))
-    step = make_index_sharded_step(sdi, mesh, m, -go, -ge, interpret=True)
+    step = make_index_sharded_step(sdi, mesh, m, -go, -ge)
     with mesh:
         out = step(jnp.asarray(reads))
     score = np.asarray(out["score"])

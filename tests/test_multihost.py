@@ -34,8 +34,7 @@ def test_two_host_stripe_merge(tmp_path):
     open(fq, "w").write("".join(recs))
 
     single = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, single, nthreads=1, batch=16,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, single, nthreads=1, batch=16)
 
     shard_paths = []
     n_hosts = 3
@@ -43,7 +42,7 @@ def test_two_host_stripe_merge(tmp_path):
         p = os.path.join(tmp_path, f"out.sam.shard{h}")
         sw = ShardWriter(p, h, n_hosts)
         run_fast_pipeline(refset, idx, fq, None, nthreads=1, batch=16,
-                          interpret=True, host_id=h, n_hosts=n_hosts,
+                          host_id=h, n_hosts=n_hosts,
                           shard_writer=sw)
         sw.close()
         shard_paths.append(p)

@@ -135,8 +135,7 @@ def _run_exact(refset, idx, fq):
 def test_repeat_mapq_and_concordance(repeat_world):
     refset, idx, fq, recs, kinds = repeat_world
     buf = io.StringIO()
-    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=64,
-                      interpret=True)
+    run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=64)
     fast = _parse(buf.getvalue())
     exact = _run_exact(refset, idx, fq)
     truth = {name: st for name, _, st in recs}
@@ -167,7 +166,7 @@ def test_repeat_exact_fallback(repeat_world):
     eng = MapEngine(refset, idx, MapParams())
     buf = io.StringIO()
     run_fast_pipeline(refset, idx, fq, buf, nthreads=1, batch=64,
-                      interpret=True, exact_engine=eng)
+                      exact_engine=eng)
     fb = _parse(buf.getvalue())
     exact = _run_exact(refset, idx, fq)
     # truncated reads went through the exact lane: their mapq must match
@@ -232,7 +231,7 @@ def test_repeat_pe_exact_fallback(repeat_pairs):
     try:
         buf = io.StringIO()
         run_fast_pipeline(refset, idx, fq1, buf, nthreads=1, batch=64,
-                          interpret=True, mates_path=fq2,
+                          mates_path=fq2,
                           exact_engine=eng)
     finally:
         FM._exact_fallback_pair = orig
@@ -266,7 +265,7 @@ def test_pe_histogram_c_tail_matches_python(repeat_pairs):
     ihist = InsHist.from_sample(samp)
     assert ihist is not None
 
-    kw = dict(nthreads=1, batch=64, interpret=True, mates_path=fq2,
+    kw = dict(nthreads=1, batch=64, mates_path=fq2,
               ihist=ihist)
     buf_c = io.StringIO()
     run_fast_pipeline(refset, idx, fq1, buf_c, **kw)

@@ -1,11 +1,9 @@
-"""Banded long-read device kernel (VERDICT r1 item 6): the skewed-band
-score must equal the full-matrix kernel whenever the alignment stays
-inside the band — verified on randomized gap grids vs the host C
-kernel — and cost O(W*S) instead of O(Q*S)."""
+"""Banded long-read device scorer: the skewed-band score must equal
+the full-matrix score whenever the alignment stays inside the band —
+verified on randomized gap grids vs the host C kernel — and cost
+O(W*S) instead of O(Q*S)."""
 import numpy as np
 import pytest
-
-import jax.numpy as jnp
 
 from smalt_tpu.ops.sw import (sw_band_score_ref, sw_score_ref,
                               band_width_for)
@@ -84,36 +82,11 @@ def test_banded_is_lower_bound_outside_band():
     assert banded <= full
 
 
-def test_banded_pallas_interpret_matches_ref():
-    """The Pallas kernel (interpret mode) equals the jnp oracle."""
-    from smalt_tpu.ops.sw import sw_band_score_batch
-    rng = np.random.default_rng(11)
-    m, go, ge = ali.make_score_matrix()
-    m = np.asarray(m, np.int32)
-    Q, pad = 256, 32
-    W = band_width_for(Q, pad)
-    S = 384
-    B = 4
-    qs = rng.integers(0, 4, (B, Q)).astype(np.int32)
-    ss = np.full((B, S), 7, np.int32)
-    for b in range(B):
-        ss[b, : S] = rng.integers(0, 4, S)
-        ss[b, pad : pad + Q] = qs[b]          # plant an exact copy
-    slens = np.full(B, S, np.int32)
-    ker = np.asarray(sw_band_score_batch(qs, ss, slens, m, -go, -ge,
-                                         pad, W, interpret=True))
-    ref = np.asarray(sw_band_score_ref(qs, ss, slens, m, -go, -ge,
-                                       pad, W))
-    assert (ker == ref).all(), (ker, ref)
-    assert (ker == Q).all()
-
-
-def test_banded_track_anchor_interpret():
-    """track=True: the banded kernel's argmax anchor (subject row,
+def test_banded_anchor_matches_full_ref():
+    """track=True: the banded scorer's argmax anchor (subject row,
     query column) must land on the end cell of the planted alignment,
-    and equal the full-matrix kernel's anchor when the band covers the
-    whole matrix."""
-    from smalt_tpu.ops.sw import sw_band_score_batch, sw_score_batch
+    and equal the full-matrix scorer's anchor when the alignment lies
+    inside the band."""
     rng = np.random.default_rng(13)
     m, go, ge = ali.make_score_matrix()
     m = np.asarray(m, np.int32)
@@ -128,15 +101,15 @@ def test_banded_track_anchor_interpret():
         ss[b, :S] = rng.integers(0, 4, S)
         ss[b, offs[b] : offs[b] + Q] = qs[b]
     slens = np.full(B, S, np.int32)
-    sc, ti, tj = (np.asarray(x) for x in sw_band_score_batch(
-        qs, ss, slens, m, -go, -ge, pad, W, interpret=True, track=True))
+    sc, ti, tj = (np.asarray(x) for x in sw_band_score_ref(
+        qs, ss, slens, m, -go, -ge, pad, W, track=True))
     assert (sc == Q).all()
     # exact copy: alignment ends at subject row offs[b]+Q-1, query Q-1
     for b in range(B):
         assert tj[b] == Q - 1, (b, tj)
         assert ti[b] == offs[b] + Q - 1, (b, ti, offs[b])
     # against the full-matrix tracker on the same input
-    fsc, fti, ftj = (np.asarray(x) for x in sw_score_batch(
-        qs, ss, slens, m, -go, -ge, interpret=True, track=True))
+    fsc, fti, ftj = (np.asarray(x) for x in sw_score_ref(
+        qs, ss, slens, m, -go, -ge, track=True))
     assert (fsc == sc).all()
     assert (fti == ti).all() and (ftj == tj).all()
